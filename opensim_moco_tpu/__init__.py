@@ -1,6 +1,6 @@
-"""opensim-moco-tpu: a TPU-native direct-collocation trajectory-optimization
-framework with the capabilities of OpenSim Moco (reference:
-adamkewley/opensim-moco), re-designed for JAX/XLA/Pallas.
+"""A direct-collocation trajectory-optimization framework with the
+capabilities of OpenSim Moco (reference: adamkewley/opensim-moco),
+re-designed for JAX/XLA.
 
 Architecture (vs. reference layer map, SURVEY.md section 1):
 

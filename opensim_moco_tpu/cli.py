@@ -30,7 +30,7 @@ def _get_example(name, **kwargs):
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(prog="opensim-moco-tpu")
+    ap = argparse.ArgumentParser(prog="python -m opensim_moco_tpu")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     runp = sub.add_parser("run-example",

@@ -1,6 +1,6 @@
 """Minimal-coordinate multibody mechanics in pure JAX.
 
-This is the TPU-native replacement for the role Simbody's
+This is the JAX-native replacement for the role Simbody's
 SimbodyMatterSubsystem plays in the reference (SURVEY.md L0; the reference
 calls ``realizeAcceleration`` per grid point through a callback bridge,
 ``MocoCasOCProblem.h:203-330``). Here the whole tree is a pure function of

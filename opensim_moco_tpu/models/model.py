@@ -1,6 +1,6 @@
 """Model composition: mechanics + actuators + muscles + forces.
 
-TPU-native analogue of an OpenSim ``Model`` as consumed by Moco
+JAX-native analogue of an OpenSim ``Model`` as consumed by Moco
 (reference MocoProblemRep.cpp:36-531 instantiates/link models; the
 two-model "disabled constraints + DiscreteForces + AccelerationMotion"
 dance of MocoProblemRep.cpp:105-141 disappears here because dynamics are

@@ -17,9 +17,8 @@ subject_walk_armless_18musc.osim gait model). Fully differentiable:
 
 Validated against the reference's golden gait solution: the implied
 muscle-tendon lengths extracted from the implicit-tendon equilibrium of
-std_testMocoInverse_subject_18musc_solution.sto (scripts/gait_lmt_extract
-.py) and the inverse-dynamics residual at the golden iterate
-(scripts/gait_wrap_experiments.py).
+std_testMocoInverse_subject_18musc_solution.sto and the inverse-dynamics
+residual at the golden iterate.
 """
 
 from __future__ import annotations

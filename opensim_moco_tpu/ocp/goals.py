@@ -1,6 +1,6 @@
 """Goal library.
 
-TPU-native re-design of the reference goal system
+JAX-native re-design of the reference goal system
 (reference Moco/Moco/MocoGoal/MocoGoal.h:77-452): every goal defines an
 ``integrand`` evaluated on the whole time grid (one fused vmap pass) and a
 ``value`` combining endpoint information with the integral. A goal is used

@@ -16,13 +16,18 @@ model-replica jar, MocoUtilities.h:680-716). Here:
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..solver.ipm import IPMOptions, make_solver
-from ..transcribe.transcription import Transcription
+
+if TYPE_CHECKING:  # importing it here first would close an import
+    # cycle: transcription -> ocp -> study -> transcription
+    from ..transcribe.transcription import Transcription
 
 
 def make_batched_solver(transcription: Transcription,

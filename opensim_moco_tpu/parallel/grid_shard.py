@@ -14,21 +14,23 @@ halo exchanges for the defect stencils and psum-style reductions for the
 quadrature automatically (the "pick a mesh, annotate shardings, let XLA
 insert collectives" recipe).
 
-The interior-point KKT factorization itself stays replicated for now: the
-sequential block-tridiagonal scan is the round-3 target for a cyclic-
-reduction (parallel-in-time) Pallas kernel; the dominant cost at gait
-scale — the batched dynamics/Jacobian evaluation over thousands of grid
-points — is what shards here.
+This module shards the evaluation only. The interior-point KKT solves of
+one problem shard separately: ``make_solver(grid_mesh=...)`` runs the
+partitioned block-tridiagonal solve of solver/kkt.py under ``shard_map``.
 """
 
 from __future__ import annotations
+
+from typing import TYPE_CHECKING
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..transcribe.transcription import Transcription
+if TYPE_CHECKING:  # importing it here first would close an import
+    # cycle: transcription -> ocp -> study -> transcription
+    from ..transcribe.transcription import Transcription
 
 
 def grid_sharded_eval(tr: Transcription, mesh: Mesh, axis: str = "grid"):
@@ -77,13 +79,3 @@ def grid_sharded_eval(tr: Transcription, mesh: Mesh, axis: str = "grid"):
         return con(shard_grid_rows(z))
 
     return objective, constraints
-
-
-def demo_grid_sharding(tr: Transcription, mesh: Mesh, axis: str = "grid"):
-    """Build + execute the sharded evaluation once (driver dry-run hook).
-    Returns (objective value, max |constraint|)."""
-    objective, constraints = grid_sharded_eval(tr, mesh, axis)
-    z0 = jnp.asarray(tr.initial_guess())
-    f = objective(z0)
-    c = constraints(z0)
-    return float(f), float(jnp.max(jnp.abs(c)) if c.size else 0.0)

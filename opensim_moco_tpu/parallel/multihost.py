@@ -1,8 +1,7 @@
-"""Multi-host scale-out (SURVEY §2.8: v5p-16-class slices span hosts).
+"""Multi-host scale-out (SURVEY §2.8: batches larger than one host).
 
-The reference has no distributed story at all (single-process IPOPT); the
-BASELINE.json targets (>=1000 batched solves/s on a v5p-16) require
-spanning hosts. The JAX-native recipe:
+The reference has no distributed story at all (single-process IPOPT). The
+JAX-native recipe for spanning hosts:
 
 1. every host process calls :func:`initialize` (jax.distributed) so
    `jax.devices()` exposes the global device set;
@@ -14,7 +13,7 @@ spanning hosts. The JAX-native recipe:
    result gather if the caller fetches remote shards).
 
 On a single process this degrades to the local-device mesh, which is how
-the driver dry-runs it on a virtual 8-device CPU mesh.
+the tests run it on a virtual 8-device CPU mesh.
 """
 
 from __future__ import annotations
@@ -32,8 +31,8 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
     sees all its devices (e.g. the CI dry-run), so the same launch script
     works on one host and on a multi-host slice.
 
-    On a real multi-host slice (GKE/TPU VM), either pass nothing (TPU
-    metadata autodetection) or the explicit coordinator/process triple.
+    On several hosts, pass the explicit coordinator/process triple (or
+    nothing where ``jax.distributed`` autodetects the cluster).
     """
     if coordinator_address is None and num_processes is None and \
             jax.process_count() == 1 and jax.local_device_count() == \

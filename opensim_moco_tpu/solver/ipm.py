@@ -13,13 +13,13 @@ shard_map-able re-implementation of the Waechter-Biegler algorithm:
   kappa-Sigma safeguarding, **filter line search** with second-order
   correction and a feasibility fallback, inertia-free regularization
   (directional-curvature test of Chiang & Zavala 2016 instead of LBL^T
-  inertia counts, which have no batched TPU factorization) — expressed as a
+  inertia counts, which have no batched factorization in XLA) — expressed as a
   single `lax.while_loop`, so an entire solve is ONE XLA computation;
 * variables with equal bounds (pinned times/initial states) are eliminated
   (IPOPT fixed_variable_treatment=make_parameter);
-* dense KKT factorization by default (right for Moco-scale problems batched
-  on the MXU); structured block-banded kernels plug in behind the same
-  interface.
+* dense KKT factorization by default (right for Moco-scale problems
+  batched across lanes); structured block-banded kernels plug in behind the
+  same interface.
 
 The whole solver runs under `vmap`: thousands of trajectory optimizations
 solve simultaneously per chip, each lane with its own convergence flag.
@@ -28,6 +28,7 @@ solve simultaneously per chip, each lane with its own convergence flag.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple
 
 import jax
@@ -105,16 +106,18 @@ class IPMOptions:
     #   available; block-tridiagonal factorization when the KKT dimension
     #   is large enough for it to win, dense factorization otherwise.
     kkt: str = "auto"
+    # not yet re-measured on the GPU (ROADMAP S5)
     kkt_structured_min_dim: int = 1200
     # dense-path factorization:
     # * "lu": one pivoted LU of the full (n+m) KKT;
     # * "chol-schur": Cholesky of Hd = H + Sigma + delta I and of the Schur
     #   complement J Hd^-1 J^T + delta_c I — pivot-free, and the heavy ops
-    #   (triangular solve with m right-hand sides, Y^T Y) are matmuls that
-    #   ride the TPU MXU, unlike LU's sequential pivoted panels. Requires
-    #   Hd positive definite: an indefinite trial produces NaNs, which the
-    #   inertia-free regularization loop already treats as "escalate
-    #   delta" — the same effect as IPOPT's inertia correction.
+    #   (triangular solve with m right-hand sides, Y^T Y) are matmul-shaped,
+    #   unlike LU's sequential pivoted panels. Requires Hd positive
+    #   definite: an indefinite trial produces NaNs, which the inertia-free
+    #   regularization loop already treats as "escalate delta" — the same
+    #   effect as IPOPT's inertia correction.
+    # The default is not yet re-measured on the GPU (ROADMAP S5).
     dense_factorization: str = "lu"
     # equality-multiplier initialization. "least-squares" solves
     # [[I, J^T],[J, -dc I]][r; nu0] = [-(grad f - wL0 + wU0); 0] at the
@@ -128,8 +131,7 @@ class IPMOptions:
     # residual in operator form (H matvec + constraint jvp/vjp) and solve
     # for a correction with the SAME factorization. Recovers most of the
     # accuracy a higher-precision factorization would give — the
-    # fp32-factor + refinement scheme SURVEY §7 calls for on TPU, where
-    # f64 LU does not compile and f64 Cholesky is ~400x slower than f32.
+    # fp32-factor + refinement scheme of SURVEY §7 for float32 solves.
     kkt_refine_iters: int = 0
 
 
@@ -168,6 +170,48 @@ class Carry(NamedTuple):
 
 def _inf_norm(x):
     return jnp.max(jnp.abs(x)) if x.size else jnp.zeros(())
+
+
+def _highest_precision(fn):
+    """Trace ``fn`` with every float32 matmul at full precision.
+
+    By default a GPU runs float32 dots in TF32, which keeps about three
+    decimal digits and poisons the Jacobians and Newton systems of the
+    interior-point iteration.
+    """
+    @functools.wraps(fn)
+    def wrapped(*args):
+        with jax.default_matmul_precision("highest"):
+            return fn(*args)
+
+    return wrapped
+
+
+def gradient_scaling(nlp: NLP, cs_full, scale_z0, gmax: float = 100.0):
+    """IPOPT gradient-based NLP scaling at ``scale_z0``: returns
+    ``(f_scale, c_scale)`` so that the objective gradient and each
+    constraint row's gradient have inf-norm at most ``gmax`` there.
+
+    Evaluated once, jitted on the default device at full matmul precision.
+    With a KKT structure (``cs_full``), Jacobian row norms come from the
+    compressed 2-coloring pass (O(nv) tangents) instead of a dense jacfwd
+    (O(n) tangents).
+    """
+    with jax.default_matmul_precision("highest"):
+        z0 = jnp.asarray(np.asarray(scale_z0))
+        g0 = jax.device_get(jax.jit(jax.grad(nlp.objective))(z0))
+        if not nlp.m:
+            row_norms = np.ones(0)
+        elif cs_full is not None:
+            from .structured import BlockDerivatives
+            row_norms = BlockDerivatives(
+                cs_full, nlp.constraints, nlp.objective).jac_row_inf_norms(z0)
+        else:
+            J0 = jax.device_get(jax.jit(jax.jacfwd(nlp.constraints))(z0))
+            row_norms = np.max(np.abs(J0), axis=1)
+    f_scale = float(min(1.0, gmax / max(np.max(np.abs(g0)), 1e-8)))
+    c_scale = np.minimum(1.0, gmax / np.maximum(row_norms, 1e-8))
+    return f_scale, c_scale
 
 
 def make_kernel(nlp: NLP, options: IPMOptions = IPMOptions(),
@@ -209,30 +253,8 @@ def make_kernel(nlp: NLP, options: IPMOptions = IPMOptions(),
 
     f_unscale = 1.0
     if scale_z0 is not None:
-        # one-off scaling evals: run jitted ON THE CPU BACKEND — compiling
-        # the full Jacobian graph for the accelerator just for this wastes
-        # minutes on remote-compile setups. With a KKT structure available,
-        # Jacobian row norms come from the compressed 2-coloring pass
-        # (O(nv) tangents) instead of a dense jacfwd (O(n) tangents).
-        cpu = jax.devices("cpu")[0]
-        with jax.default_device(cpu):
-            z0s = jnp.asarray(np.asarray(scale_z0))
-            g0 = jax.device_get(jax.jit(jax.grad(nlp.objective))(z0s))
-            if nlp.m:
-                if cs_full is not None:
-                    from .structured import BlockDerivatives
-                    bd0 = BlockDerivatives(cs_full, nlp.constraints,
-                                           nlp.objective)
-                    row_norms = bd0.jac_row_inf_norms(z0s)
-                else:
-                    J0 = jax.device_get(
-                        jax.jit(jax.jacfwd(nlp.constraints))(z0s))
-                    row_norms = np.max(np.abs(J0), axis=1)
-        gmax = 100.0
-        f_scale = float(min(1.0, gmax / max(np.max(np.abs(g0)), 1e-8)))
+        f_scale, c_scale = gradient_scaling(nlp, cs_full, scale_z0)
         f_unscale = 1.0 / f_scale
-        c_scale = np.minimum(1.0, gmax / np.maximum(row_norms, 1e-8)) \
-            if nlp.m else np.ones(0)
         c_scale_j = jnp.asarray(c_scale)
         base_obj, base_con = nlp.objective, nlp.constraints
         nlp = NLP(n=nlp.n, m=nlp.m,
@@ -538,7 +560,7 @@ def make_kernel(nlp: NLP, options: IPMOptions = IPMOptions(),
             # kernel. No factorization is cached across the Newton/SOC/
             # feasibility solves (each re-condenses its local chunk) — the
             # price of time-axis parallelism; the reduced boundary system
-            # and border Schur ride collectives (psum/all_gather on ICI).
+            # and border Schur ride collectives (psum/all_gather).
             from functools import partial
 
             from jax import shard_map
@@ -607,7 +629,7 @@ def make_kernel(nlp: NLP, options: IPMOptions = IPMOptions(),
         elif opt.dense_factorization == "chol-schur":
             # pivot-free quasi-definite factorization: Lh = chol(Hd),
             # Y = Lh^-1 J^T (a triangular solve with m right-hand sides —
-            # a matmul-shaped op the MXU tiles), S = Y^T Y + delta_c I,
+            # a matmul-shaped op), S = Y^T Y + delta_c I,
             # Ls = chol(S). Indefinite Hd -> NaN -> the reg loop escalates
             # delta, exactly like an IPOPT inertia correction.
             tri = jax.lax.linalg.triangular_solve
@@ -764,7 +786,7 @@ def make_kernel(nlp: NLP, options: IPMOptions = IPMOptions(),
         # full step, then one second-order correction, then CANDIDATE-
         # PARALLEL backtracking: all trial alphas are evaluated in one
         # batched pass instead of a sequential halving loop — sequential
-        # inner loops serialize to worst-case across vmap lanes on TPU.
+        # inner loops serialize to worst-case across vmap lanes.
         z_full = z + alpha_pr_max * dz
         acc_full, armi_full = test_alpha(alpha_pr_max, z_full)
 
@@ -1037,20 +1059,20 @@ def make_chunked_solver(nlp: NLP, options: IPMOptions = IPMOptions(),
     reference's ``output_interval`` trajectory snapshots
     (MocoCasADiSolver.h:138) and FileDeletionThrower abort hook
     (MocoUtilities.h:717-756) — without host callbacks inside the XLA
-    program."""
+    program. All three are jitted at full matmul precision."""
     init_fn, body_fn, cond_fn, finalize_fn, _ = make_kernel(
         nlp, options, scale_z0=scale_z0)
 
     @jax.jit
+    @_highest_precision
     def run_chunk(carry, iter_limit):
         def cond(c):
             return (~c.converged) & (c.it < iter_limit)
 
-        # full-f32 matmul accumulation on TPU (see make_solver)
-        with jax.default_matmul_precision("highest"):
-            return jax.lax.while_loop(cond, body_fn, carry)
+        return jax.lax.while_loop(cond, body_fn, carry)
 
-    return init_fn, run_chunk, finalize_fn
+    return (jax.jit(_highest_precision(init_fn)), run_chunk,
+            jax.jit(_highest_precision(finalize_fn)))
 
 
 def make_solver(nlp: NLP, options: IPMOptions = IPMOptions(),
@@ -1066,14 +1088,9 @@ def make_solver(nlp: NLP, options: IPMOptions = IPMOptions(),
         nlp, options, scale_z0=scale_z0, grid_mesh=grid_mesh,
         grid_axis=grid_axis)
 
+    @_highest_precision
     def solve(z0_full):
-        # TPU f32 matmuls default to bf16-compensated passes, which poison
-        # IPM Jacobians/Newton systems: on the bench batch this costs 4/32
-        # lanes and ~2x the iterations (30.4 -> 55 mean). Force full-f32
-        # matmul accumulation for everything inside the solver; CPU/GPU
-        # are unaffected.
-        with jax.default_matmul_precision("highest"):
-            out = jax.lax.while_loop(cond_fn, body_fn, init_fn(z0_full))
-            return finalize_fn(out)
+        out = jax.lax.while_loop(cond_fn, body_fn, init_fn(z0_full))
+        return finalize_fn(out)
 
     return solve

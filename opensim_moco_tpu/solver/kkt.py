@@ -10,11 +10,10 @@ constraints) couples everything. Ordered by mesh interval, the KKT matrix is
          [B^T, C ]]       B: (N*nb, k) border, C: (k, k), k small
 
 This module provides a bordered block-tridiagonal factor/solve built on
-`lax.scan` (sequential over intervals, dense per-block ops that batch well
-on the MXU) — O(N nb^3) instead of O((N nb)^3) for the dense path. This is
-the round-2 engine for full-resolution gait problems and the substrate for
-the Pallas pipeline kernels; the IPM consumes it through the same
-``kkt_solve`` interface as the dense path.
+`lax.scan` (sequential over intervals, dense per-block ops that batch
+across lanes) — O(N nb^3) instead of O((N nb)^3) for the dense path — and
+its partitioned (parallel-in-time) variant for a mesh of devices. The IPM
+consumes both through the same ``kkt_solve`` interface as the dense path.
 """
 
 from __future__ import annotations
@@ -166,7 +165,7 @@ def bordered_block_tridiag_solve_partitioned(D, L, B, C, rhs_T, rhs_C,
     solution shard x (Nl, nb) and the replicated border solution w (k,).
 
     The border Schur complement S = C - B^T T^{-1} B is reduced with a
-    psum over device shards — the ICI collective that replaces the
+    psum over device shards — the collective that replaces the
     sequential full-grid scan of the replicated path (SURVEY §2.8).
     """
     k = B.shape[-1]

@@ -25,8 +25,8 @@ coloring is analytic:
   would alias under compression.
 
 The recovered blocks feed :class:`BTBFactor`, a bordered block-tridiagonal
-LDL-ish factorization built on ``lax.scan`` with dense per-block ops (MXU
-friendly): factor once per regularization trial, then solve the Newton
+LDL-ish factorization built on ``lax.scan`` with dense per-block ops:
+factor once per regularization trial, then solve the Newton
 step, the second-order correction, and the feasibility fallback as cheap
 extra right-hand sides. O(N nb^3) factor, O(N nb^2) per solve.
 
@@ -54,9 +54,9 @@ def _seeded_jvp(fn, z, seeds, n_blocks):
 
     On big transcriptions (N >= 32 blocks, e.g. the 50-mesh-interval gait
     problems) a plain vmap over ~2nv+kv tangents batches the whole
-    evaluation tape by the seed count and blows HBM on a single chip
-    (observed: v5-lite 'TPU device error' on the full-resolution bench
-    lane). lax.map with a batch size trades that peak for a short scan.
+    evaluation tape by the seed count, and under the solver's own vmap
+    over lanes that peak multiplies by the batch size. lax.map with a
+    batch size trades that peak device memory for a short scan.
     """
     if n_blocks < 32:
         return jax.vmap(lambda s: jax.jvp(fn, (z,), (s,))[1])(seeds)
@@ -201,20 +201,19 @@ class BlockDerivatives:
         """max_j |J[r, j]| per row, from one compressed pass (for IPOPT-style
         gradient-based NLP scaling). Valid because compressed columns of
         non-border rows never alias; border rows are exact."""
-        jb = self.jac_blocks(z)
+        jb = jax.device_get(jax.jit(self.jac_blocks)(z))
         cs = self.cs
         out = np.zeros(cs.m)
-        JC_max = np.array(jnp.maximum(
-            jnp.max(jnp.abs(jb["Jcv"]), axis=2),
-            jnp.max(jnp.abs(jb["Jcb"]), axis=2)
-            if self.kv else 0.0))
-        nxt = np.asarray(jnp.max(jnp.abs(jb["Jc0v1"]), axis=2))
+        JC_max = np.max(np.abs(jb["Jcv"]), axis=2)
+        if self.kv:
+            JC_max = np.maximum(JC_max, np.max(np.abs(jb["Jcb"]), axis=2))
+        nxt = np.max(np.abs(jb["Jc0v1"]), axis=2)
         JC_max[:-1] = np.maximum(JC_max[:-1], nxt)
         for i in range(cs.N):
             idx = cs.C[i][cs.Cm[i]]
             out[idx] = JC_max[i][cs.Cm[i]]
         if self.kc:
-            out[cs.bc] = np.asarray(jnp.max(jnp.abs(jb["Jbc"]), axis=1))
+            out[cs.bc] = np.max(np.abs(jb["Jbc"]), axis=1)
         return out
 
 

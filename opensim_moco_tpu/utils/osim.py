@@ -429,7 +429,7 @@ def parse_osim(path, gravity=None, weld_joints=(), weld_q=None):
                 # defaults here are per source type: Millard2012
                 # (0.010/0.040), Thelen2003 (0.015/0.050), DGF
                 # (0.015/0.060). Validated against the golden gait
-                # solution's activation defects (scripts/gait_lmt_extract).
+                # solution's activation defects.
                 tau_defaults = {
                     "Millard2012EquilibriumMuscle": ("0.01", "0.04"),
                     "Thelen2003Muscle": ("0.015", "0.05"),
@@ -631,8 +631,8 @@ def parse_osim(path, gravity=None, weld_joints=(), weld_q=None):
                 # wrap may act on any segment incident to that window,
                 # segments r0-1 .. r1-1 0-based. Validated against the
                 # reference golden gait solution: psoas' PS_at_brim range
-                # "2 3" engages on the P3->P4 segment at hip extension
-                # (scripts/gait_wrap_experiments.py). -1 -1 = all.
+                # "2 3" engages on the P3->P4 segment at hip extension.
+                # -1 -1 = all.
                 if rng[0] > 0:
                     cands = tuple(range(rng[0] - 1, min(rng[1], nseg)))
                 else:

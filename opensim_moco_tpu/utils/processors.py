@@ -174,7 +174,7 @@ def ModOpReplaceMusclesWithDeGrooteFregly2016():
     straight via-point paths. The shipped golden gait solutions encode
     exactly this (validated: implied muscle-tendon lengths from
     std_testMocoInverse_subject_18musc_solution.sto match the wrap-free
-    paths to <0.3 mm, scripts/gait_lmt_extract.py). This op reproduces
+    paths to <0.3 mm). This op reproduces
     that behavior."""
     import dataclasses
 

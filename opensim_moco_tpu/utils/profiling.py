@@ -1,7 +1,6 @@
 """In-product profiling hooks (SURVEY §5: the reference ships no profiler
 either, but production deployment needs one; this wraps JAX's native
-device tracing the TPU way instead of porting OpenSim's wall-clock
-timers).
+device tracing instead of porting OpenSim's wall-clock timers).
 
 * :func:`trace` — context manager around `jax.profiler.trace`: captures a
   device trace (XLA op timeline, HBM usage) viewable in

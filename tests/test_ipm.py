@@ -107,7 +107,7 @@ def test_vmapped_batch_of_starts():
 
 def test_kkt_iterative_refinement_f32():
     """fp32 factorization + operator-form iterative refinement (SURVEY §7
-    scheme for TPU where f64 LU is unavailable): refinement must reach a
+    scheme for float32 solves): refinement must reach a
     tighter tolerance in f32 than the plain f32 solve on an
     ill-conditioned problem."""
     import jax

@@ -80,7 +80,7 @@ def build_study(num_mesh_intervals=50):
     # this problem family needs the aggressive barrier schedule: with the
     # conservative default gate (kappa_eps=10) the iterate orbits at a
     # barrier-pressure error floor ~1e-3 that only clears once mu races
-    # down (docs/PERF.md r5); kappa_eps=100 + mu_init 1e-2 converges in
+    # down (PERF.md, Findings); kappa_eps=100 + mu_init 1e-2 converges in
     # ~7 iterations at mesh 50
     study.set_ipm_options(tol=1e-6, max_iter=500, mu_init=1e-2,
                           kappa_eps=100.0)
